@@ -1,11 +1,11 @@
-"""mellon-tpu: a TPU-native probabilistic inference framework with the
+"""mellon-tpu: an accelerator-native probabilistic inference framework with the
 capabilities of settylab/Mellon (non-parametric cell-state density,
 dimensionality, time-sensitive density and function estimation on sparse
 Gaussian processes with a nearest-neighbor-distance likelihood).
 
 Unlike the reference (``mellon/__init__.py:44-59``), importing this package
 has no JAX side effects: the platform and precision are whatever the host
-program configured, so TPU executions stay f32/bf16 on the MXU by default.
+program configured, so accelerator executions stay f32 by default.
 """
 
 import logging

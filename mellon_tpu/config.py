@@ -1,15 +1,15 @@
 """Global numeric configuration for mellon-tpu.
 
 The reference implementation (mellon, ``mellon/__init__.py:44-59``) pins JAX to
-CPU and enables x64 at import time.  That is the wrong default for TPU: the MXU
-natively computes in f32/bf16 and f64 is software-emulated.  mellon-tpu instead
+CPU and enables x64 at import time.  That is the wrong default for an
+accelerator, whose fast paths are f32 and below.  mellon-tpu instead
 
 * never touches the platform at import time,
 * computes in whatever dtype JAX's ``x64`` flag implies (f64 when enabled —
   used by the CPU test-suite for parity with the reference — f32 otherwise),
 * concentrates the precision-sensitive work (the m x m landmark Cholesky,
   cf. ``mellon/decomposition.py:79-123``) behind adaptive jitter so that f32
-  stays stable on TPU.
+  stays stable on the device.
 """
 
 import jax
@@ -25,7 +25,7 @@ DEFAULT_JITTER = 1e-6
 # the cost of the larger factorization and a host round trip.  Relevant
 # when the kernel's f32 rank is far below the landmark count and the
 # pruned model visibly under-resolves (e.g. the 98k-cell d=2 time-series
-# shape, PERFORMANCE.md "Fidelity disclosure").
+# shape).
 PRUNE_SINGULAR_LANDMARKS = True
 
 # When the full-capacity path (PRUNE_SINGULAR_LANDMARKS = False) has

@@ -9,7 +9,7 @@ deliberately:
   loop with one device dispatch per step, ``mellon/inference.py:868-870``);
 * per-iteration PRNG keys are derived by folding the iteration index into a
   base key instead of re-seeding ``PRNGKey(t)`` (same independence property,
-  TPU-friendly key derivation);
+  jit-friendly key derivation);
 * the initial log-std is 0 (initial std 1.0), matching the reference's
   actual behaviour (``-10 * zeros_like`` at ``mellon/inference.py:855``).
 """

@@ -33,8 +33,8 @@ logger = logging.getLogger("mellon_tpu")
 def _hp(a, b):
     """Matrix product at HIGHEST precision.  Conditional algebra combines
     kernel values with solve outputs (weights/factors) that can reach ~1e3
-    in magnitude for ill-conditioned landmark kernels; the TPU's
-    fast-precision matrix-matrix path would inject O(1) error there (a
+    in magnitude for ill-conditioned landmark kernels; a reduced-precision
+    matrix-matrix product (bf16 or TF32) would inject O(1) error there (a
     matvec stays accurate, which masked this until multi-output fits).
     These products are small (n_new x m x p), so the cost is negligible."""
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
@@ -209,7 +209,7 @@ def _get_L(x, cov_func, jitter=DEFAULT_JITTER, y_cov_factor=None, K=None):
     if K is None:
         K = cov_func(x, x)
     K = add_variance(K, y_cov_factor, jitter=jitter)
-    # In f32 (TPU default) the factorization escalates jitter and finally
+    # In f32 (the device default) the factorization escalates jitter and finally
     # clamps the spectrum before failing; the reference runs f64 where the
     # first attempt virtually always succeeds.
     max_tries = 0 if K.dtype == jnp.float64 else 3
@@ -941,7 +941,7 @@ class _LandmarksConditional:
 
             if jnp.ndim(sigma_pf) == 1:
                 # scalar sigma per feature: A_l Aᵀ = S/σ² exactly, so the
-                # O(m²n) MXU product runs once instead of once per feature
+                # O(m²n) product runs once instead of once per feature
                 S = _hp(A, A.T)
                 Ar = _hp(A, r)  # (m, p)
 

@@ -59,8 +59,8 @@ def effective_sample_size(samples, return_truncation=False):
         the autocorrelation never went negative within the window, i.e.
         the ESS for that dimension is a window-limited LOWER BOUND, not a
         measurement — the signature of chains far shorter than the
-        integrated autocorrelation time (VERDICT r3: short-window ESS
-        floors masquerading as throughput).
+        integrated autocorrelation time (a short-window ESS floor is not
+        a throughput).
 
     Returns
     -------

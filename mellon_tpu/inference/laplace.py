@@ -5,7 +5,7 @@ diagonal of the negative log-posterior at the MAP, extracted with
 forward-over-reverse HVPs, clipped at 1e-8, and inverted to standard
 deviations.
 
-TPU note: the HVP basis sweep is chunked (``batch_size``) so the k HVPs run
+Memory note: the HVP basis sweep is chunked (``batch_size``) so the k HVPs run
 as vmapped groups without materializing a k×k Hessian; each HVP is two
 passes over the O(n·m) loss graph.
 """

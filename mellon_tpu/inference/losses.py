@@ -9,28 +9,28 @@ from jax.scipy.special import gammaln
 
 from .likelihoods import nearest_neighbors_likelihood, normal_prior, poisson_likelihood
 
-# Precision of the L-matvec inside the sampled/optimized losses.  f32
-# matmuls default to ONE reduced-precision (bf16) MXU pass, and under the
-# chain/particle vmap the per-chain matvec becomes a matmul, so every
-# potential/gradient evaluation picks up ~1e-3-relative rounding that is
-# HIGH-FREQUENCY in z.  MAP/L-BFGS tolerates it; Hamiltonian MCMC does
-# not: the noise breaks leapfrog energy conservation at a step-size-
-# independent ~0.05-1 nats/eval, dual averaging reacts by collapsing the
-# step size, and every NUTS tree runs to the depth cap with frozen chains
-# (the round-3/4 north-star "conditioning wall" reproduced on CPU and
-# vanished at HIGHEST precision — see scripts/sampler_sanity.py and
-# PERFORMANCE.md).  HIGHEST costs extra MXU passes only in the matvec;
-# the tree length collapse (1023 -> ~15 leapfrogs/draw) dwarfs it.
-# MELLON_TPU_MATVEC_PRECISION=high opts into the 3-pass variant (~2x the
-# 6-pass sampling throughput at saturating chain counts) — use only with
-# a posterior-agreement check against the default.
+# Precision of the L-matvec inside the sampled/optimized losses.  An f32
+# matmul at DEFAULT precision runs reduced-precision arithmetic (TF32 on
+# the GPU: 10 mantissa bits), and under the chain/particle vmap the
+# per-chain matvec becomes a matmul, so every potential/gradient
+# evaluation picks up ~1e-3-relative rounding that is HIGH-FREQUENCY in
+# z.  MAP/L-BFGS tolerates it; Hamiltonian MCMC does not: the noise breaks
+# leapfrog energy conservation at a step-size-independent ~0.05-1
+# nats/eval, dual averaging reacts by collapsing the step size, and every
+# NUTS tree runs to the depth cap with frozen chains (reproduced on CPU
+# with a bf16 product; gone at HIGHEST — see scripts/sampler_sanity.py).
+# HIGHEST (full f32) is the default.  MELLON_TPU_MATVEC_PRECISION=high
+# opts into three bf16 products with f32 accumulation
+# (``DotAlgorithmPreset.BF16_BF16_F32_X3``, ~f32 accurate), the arithmetic
+# this option was certified with — use it only with a posterior-agreement
+# check against the default.
 import os as _os
 
 _MATVEC_PRECISION_OPTIONS = {
-    # 'default' restores the single reduced-precision MXU pass — only for
-    # A/B experiments against the corrected paths; never for sampling.
+    # 'default' restores the reduced-precision product — only for A/B
+    # experiments against the corrected paths; never for sampling.
     "default": jax.lax.Precision.DEFAULT,
-    "high": jax.lax.Precision.HIGH,
+    "high": jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3,
     "highest": jax.lax.Precision.HIGHEST,
 }
 _matvec_env = _os.environ.get("MELLON_TPU_MATVEC_PRECISION", "highest")

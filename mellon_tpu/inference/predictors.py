@@ -12,6 +12,7 @@ import bz2
 import gzip
 import json
 import logging
+import re
 import sys
 from abc import ABC, abstractmethod
 from datetime import datetime
@@ -42,6 +43,13 @@ logger = logging.getLogger("mellon_tpu")
 # queries larger than this evaluate in row chunks so the (n_query, m) kernel
 # tile stays memory-bounded at atlas scale
 PREDICT_CHUNK_SIZE = 200_000
+
+
+def _release_tuple(version):
+    """Numeric release of a version string, e.g. "1.3.0rc1" -> (1, 3, 0);
+    None when it does not start with a number."""
+    match = re.match(r"v?(\d+(?:\.\d+)*)", str(version).strip())
+    return tuple(int(p) for p in match.group(1).split(".")) if match else None
 
 
 def _chunked_rows(fn, x, chunk_size=PREDICT_CHUNK_SIZE):
@@ -373,8 +381,6 @@ class Predictor(ABC):
         """Deserialize from a dict, including the reference's <1.4.0
         migration shim and cross-framework module mapping
         (parity: ``mellon/base_predictor.py:684-720``)."""
-        from packaging import version as _version
-
         clsname = data_dict["metadata"]["classname"]
         module_name = data_dict["metadata"]["module_name"]
         module_version = data_dict["metadata"]["module_version"]
@@ -383,12 +389,8 @@ class Predictor(ABC):
         # reference package ("mellon.*"); our own version numbering is
         # independent of it
         is_reference = module_name.split(".")[0] == "mellon"
-        try:
-            old = is_reference and _version.parse(module_version) < _version.parse(
-                "1.4.0"
-            )
-        except Exception:
-            old = False
+        release = _release_tuple(module_version)
+        old = is_reference and release is not None and release < (1, 4, 0)
         if old:
             logger.warning(
                 f"Loading a predictor written by version {module_version} < 1.4.0. "

@@ -1,4 +1,4 @@
-"""Full posterior inference: HMC and NUTS, TPU-first.
+"""Full posterior inference: HMC and NUTS, compiled for the device.
 
 These are NEW capabilities relative to the reference (settylab/Mellon), whose
 inference is MAP (scipy L-BFGS-B), ADVI and a diagonal Laplace approximation

@@ -369,8 +369,7 @@ def laplace_start(loss_fn, loss_args, z0, z_map=None):
     ``z0`` computes it.  Returns ``(adjusted_loglik, prior_kwargs)``; the
     tempered target at β = 1 and the evidence estimate are identical to
     the N(0, I)-prior start, but the annealing path is short and
-    well-mixed on peaked posteriors (PERFORMANCE.md "SMC on the density
-    model").
+    well-mixed on peaked posteriors.
     """
     from .laplace import compute_laplace_std
     from .optimizers import minimize_lbfgsb

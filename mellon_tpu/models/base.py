@@ -411,7 +411,7 @@ class BaseEstimator:
     def _compute_Lp(self):
         import jax.numpy as jnp
 
-        # f32/TPU fast path for the sparse case: when the landmark kernel is
+        # f32 fast path for the sparse case: when the landmark kernel is
         # numerically singular in f32, prune to the pivoted-Cholesky-selected
         # subset (dropping linearly redundant landmarks) instead of paying a
         # host-f64 factorization — fully on device, and every downstream
@@ -458,7 +458,7 @@ class BaseEstimator:
             # full-capacity path: the landmark kernel was f32-singular and
             # factorized on the host in f64; whiten through its triangular
             # inverse in extended (double-single) precision on device —
-            # f64-equivalent accuracy at bf16-MXU speed
+            # f64-equivalent accuracy from bf16 matrix products
             from ..ops.extended_precision import whiten_with_hostf64
 
             logger.info(

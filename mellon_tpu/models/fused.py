@@ -49,7 +49,9 @@ FUSED_PIVOT_CAP = 1024
 def _cpu_ivf_applies(n):
     """True when the lazy kNN path would auto-select cluster-pruned (IVF)
     search — CPU backend above IVF_THRESHOLD — in which case the fused
-    O(n^2) sweep must decline so the lazy path keeps its 44x advantage."""
+    O(n^2) sweep must decline so the lazy path keeps its 44x advantage.
+    On the GPU the fused dense sweep runs at every size; it has not yet
+    been measured against IVF there."""
     from ..ops.neighbors import IVF_THRESHOLD
 
     return n > IVF_THRESHOLD and jax.default_backend() == "cpu"
@@ -81,8 +83,8 @@ def _chol_attempt_with_pivot(K, jitter):
     separate program dispatch and host fetch."""
     diag = jnp.arange(K.shape[0])
     # HIGHEST matmul precision, matching _jittered_cholesky: the default
-    # single bf16 MXU pass puts ~1e-3-relative noise on L that cond(Lp)
-    # amplifies through the whitening (round-4 root cause; ADVICE r4 #1).
+    # reduced-precision product (bf16 or TF32) puts ~1e-3-relative noise
+    # on L that cond(Lp) amplifies through the whitening.
     with jax.default_matmul_precision("highest"):
         Lp = jnp.linalg.cholesky(K.at[diag, diag].add(jitter))
     ok = ~jnp.any(jnp.isnan(Lp))
@@ -185,8 +187,8 @@ def _prune_chol_program(K, piv, jitter):
     """Submatrix Cholesky alone — the first leg of the CHUNKED stage-2
     route for large (n, pruned-m) shapes (see _finish_factorization): the
     single-program TRSM at (98k, 2176) keeps ~8 GB of panel-update temps
-    alive and OOMs one v5e, so the TRSM runs row-chunked as separate
-    program calls instead."""
+    alive, so the TRSM runs row-chunked as separate program calls
+    instead."""
     jitter = jnp.asarray(jitter, dtype=K.dtype)
     K_sub = K[piv][:, piv]
     diag = jnp.arange(K_sub.shape[0])

@@ -5,7 +5,7 @@ model per unique time point, correlate the per-time density fields, and fit
 the time-kernel length scale to match the correlations (the L-BFGS fit runs
 on device via :func:`mellon_tpu.inference.optimizers.minimize_lbfgsb`).
 
-TPU-first redesign of the per-time fits (SURVEY.md §7 "hard part": the
+Device-first redesign of the per-time fits (SURVEY.md §7 "hard part": the
 reference nests a full serial DensityEstimator fit per time point,
 ``mellon/compute_ls_time.py:66-85``): in the default configuration every
 per-time model takes the FULL-GP path (per-time cell counts are below the
@@ -131,12 +131,12 @@ def _batched_density_loss(zflat, L_stack, nng, mask, mu_t, d):
     near-singular, the zoom line search can probe latents where
     ``exp(F + V)`` overflows f32 — a multiplicative mask then yields
     ``0 * -inf = NaN`` for padded cells and ``inf`` gradients for real
-    ones, aborting L-BFGS at step 1 with a NaN loss (observed on TPU at
+    ones, aborting L-BFGS at step 1 with a NaN loss (observed in f32 at
     the d=2 bench shape)."""
     T, n_pad, _ = L_stack.shape
     Z = zflat.reshape(T, n_pad)
     # accurate matvec: the batched einsum otherwise runs one reduced-
-    # precision MXU pass, putting ~1e-3-relative high-frequency noise on
+    # precision product, putting ~1e-3-relative high-frequency noise on
     # the joint loss surface — the same effect that froze the NUTS chains
     # (losses.py) here degrades the joint L-BFGS optimum and with it the
     # cross-time density correlations that ls_time is fit to.  Routed
@@ -288,11 +288,10 @@ def _batched_ls_time_densities(
     @jax.jit
     def ridge(L_stack, mask, target):
         # masked ridge warm start: (LᵀWL + I) z = LᵀW (mle − mu).
-        # HIGHEST-precision Gram + Cholesky solve: the default bf16-pass
-        # Gram fed to the TPU LU solve returned NaN for host-f64-rescued
-        # factors (localized by scripts/debug_ls_time_nan.py — the host
-        # f64 ridge on the same operands is clean), which poisoned the
-        # joint L-BFGS at step 1
+        # HIGHEST-precision Gram + Cholesky solve: a reduced-precision
+        # Gram fed to an f32 LU solve returned NaN for host-f64-rescued
+        # factors (the host f64 ridge on the same operands is clean),
+        # which poisoned the joint L-BFGS at step 1
         hp = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
         def one(L_t, mask_t, target_t):
@@ -422,8 +421,8 @@ def _batched_ls_time_densities(
         # extended-precision predict for the host-f64-rescued groups: their
         # factors are ill-conditioned enough that the f32 triangular solve
         # w = L⁻ᵀz and the f32 product K_s w amplify rounding by ~cond(L)
-        # — the drift behind the r3 ls_time accuracy gap at the d=2 bench
-        # shape (PERFORMANCE.md).  The tiny (n_pad,) solve runs on the host
+        # — the drift behind an ls_time accuracy gap at the d=2 bench
+        # shape.  The tiny (n_pad,) solve runs on the host
         # in f64; the big (n, n_pad) product runs on device as a
         # double-single matmul.
         import scipy.linalg as sla

@@ -1,8 +1,8 @@
 """On-device k-means for landmark selection.
 
 Replaces sklearn's host-side ``k_means`` (``mellon/parameters.py:243-291``).
-TPU-first design: Lloyd iterations under ``lax.scan`` with assignment by
-blocked distance-argmin (one MXU matmul per block) and centroid update by
+Device design: Lloyd iterations under ``lax.scan`` with assignment by
+blocked distance-argmin (one matmul per block) and centroid update by
 ``segment_sum`` — fully jittable, deterministic under a seed, and shardable
 over the cells axis.
 """

@@ -1,15 +1,16 @@
-"""Extended-precision (double-single) matrix products on the MXU.
+"""Extended-precision (double-single) matrix products from bf16 matmuls.
 
-Why this exists (SURVEY.md §7 "Precision"; VERDICT r3 Missing #2): at the
+Why this exists (SURVEY.md §7 "Precision"): at the
 reference's 98k-cell d=2 time-series shape the product kernel saturates and
 the landmark matrix K_uu is so ill-conditioned that the sparse-GP
 factorization L = C Lp⁻ᵀ amplifies f32 rounding by ~cond(Lp) — the f32
 triangular solve against a (host-f64) factor certifies only corr 0.76
 against the reference's fully-f64 pipeline.  The reference never sees this
 because it runs float64 on the host (``mellon/__init__.py:44-59``);
-a TPU-native path needs f64-EQUIVALENT arithmetic without f64 hardware.
+this layer gives f64-EQUIVALENT products from f32 storage and bf16
+matrix products.
 
-The scheme (Ozaki-style error-free slicing, adapted to the TPU MXU):
+The scheme (Ozaki-style error-free slicing):
 
 * The ill-conditioned triangular factor is inverted ONCE on the host in
   f64 (m×m, seconds) and shipped as a double-single pair
@@ -20,17 +21,19 @@ The scheme (Ozaki-style error-free slicing, adapted to the TPU MXU):
   slices on an ABSOLUTE binary grid (slice k holds bits [8k, 8(k+1)) of
   the scaled value), so every slice is exactly bf16-representable and the
   product of two slices is an exact multiple of a common grid.  With
-  contraction chunks of ≤128 terms the f32 accumulator inside the MXU
-  pass stays within 23 bits of the grid — every chunk partial sum is
-  EXACT, not merely rounded.
-* Chunk partials and slice-pair partials combine on the VPU in
+  contraction chunks of ≤128 terms the f32 accumulator of the matmul
+  stays within 23 bits of the grid — every chunk partial sum is EXACT,
+  not merely rounded.  This premise is the hardware's: it needs a
+  bf16×bf16 product that accumulates in f32 without dropping bits
+  (``chip_smoke.py`` checks it on the GPU at (16,384 x 5,000) @
+  (5,000 x {1, 64}) against numpy float64).
+* Chunk partials and slice-pair partials combine elementwise in
   double-single arithmetic (TwoSum), so the only unrecoverable errors are
   the dropped high-order slice pairs (≤ 2⁻⁴⁰ of the accumulation
   amplitude) and the f32 representation of A itself.
 
-Cost: ``len(kept pairs)`` (20 by default) bf16 MXU passes over the data —
-about 20× a plain bf16 matmul's FLOPs, still MXU-bound and orders of
-magnitude faster than a host round trip at (98k, 5000).
+Cost: ``len(kept pairs)`` (20 by default) bf16 matmuls over the data —
+about 20× a plain bf16 matmul's FLOPs.
 
 No reference counterpart exists (the reference is host-f64 end to end).
 """
@@ -50,7 +53,7 @@ logger = logging.getLogger("mellon_tpu")
 SLICE_BITS = 8
 # contraction-chunk length: products of two 8-bit slices live on a 16-bit
 # grid; 2^7 = 128 of them sum to <= 23 bits — exactly representable in the
-# f32 accumulator of a bf16 MXU pass
+# f32 accumulator of a bf16 matmul
 CHUNK_K = 128
 # number of slices of the f32 A operand and of the double-single B
 # operand (6 x 8 = 48 bits).  A needs FIVE slices, not three: the slices
@@ -292,7 +295,7 @@ def whiten_with_hostf64(x, cov_func, xu, Lp64, block_rows=4096):
         except NotImplementedError:
             # WARNING, not INFO: the full-capacity path silently losing
             # its f64-equivalence guarantee is exactly the degradation
-            # this route exists to avoid (VERDICT r4 missing #5)
+            # this route exists to avoid
             logger.warning(
                 "Kernel %s has no double-single evaluation core; the "
                 "extended-precision whitening will use f32 kernel values "
@@ -324,7 +327,7 @@ def whiten_with_hostf64(x, cov_func, xu, Lp64, block_rows=4096):
 
 
 # ---------------------------------------------------------------------------
-# double-single scalar arithmetic (elementwise, VPU): the building blocks
+# double-single scalar arithmetic (elementwise): the building blocks
 # for f64-equivalent kernel EVALUATION on device.  Mode-B/C of the round-4
 # fidelity experiment showed that an accurate solve alone is not enough at
 # extreme conditioning: the f32 rounding (~6e-8 absolute) of the kernel

@@ -2,8 +2,8 @@
 
 Behavioural parity target: ``mellon/base_cov.py`` and ``mellon/cov.py``.
 
-TPU-first notes: every kernel evaluation is a single fused XLA graph of
-(matmul for pairwise distances) -> (elementwise VPU math); no intermediate
+Device notes: every kernel evaluation is a single fused XLA graph of
+(matmul for pairwise distances) -> (elementwise math); no intermediate
 materialization beyond the (n, m) tile.  The serialization format is kept
 byte-compatible with the reference (type tag ``"mellon.Covariance"``,
 ``mellon/base_cov.py:110-224``) so kernels round-trip between frameworks.

@@ -2,14 +2,14 @@
 
 Replaces the reference's host-side dependencies: pynndescent (approximate
 kNN, ``mellon/parameters.py:352-433``) and sklearn BallTree/KDTree
-(``mellon/util.py:486-536``).  TPU-first design: the pairwise-distance tile
-is one MXU matmul per (block x n) strip, reduced with ``lax.approx_min_k``
-(TPU's native partial-reduction top-k; exact lowering on CPU) into a
+(``mellon/util.py:486-536``).  Device design: the pairwise-distance tile
+is one matmul per (block x n) strip, reduced with ``lax.approx_min_k``
+(XLA lowers it to an exact top-k on the GPU and the CPU) into a
 candidate set that is re-ranked with cancellation-free coordinate
-distances — 1M x 50 in 2.6 s on one v5e.  Deterministic; >=99.9% of 1-NN
-distances match coordinate-exact to 1e-4 relative (the reference's
-pynndescent is itself approximate).  Memory stays bounded by processing
-queries in row blocks with ``lax.scan``.
+distances.  Deterministic; >=99.9% of 1-NN distances match
+coordinate-exact to 1e-4 relative (the reference's pynndescent is itself
+approximate).  Memory stays bounded by processing queries in row blocks
+with ``lax.scan``.
 """
 
 import logging
@@ -33,17 +33,25 @@ EXACT_CAND_DIM_MAX = 16
 DEFAULT_COL_BLOCK = 1 << 20
 
 
+def _cross_term_precision(dtype):
+    """Dot algorithm of the matmul-form candidate distances: three bf16
+    products for f32 operands, full precision for any other dtype (the
+    bf16 split would round f64 operands to f32)."""
+    if dtype == jnp.float32:
+        return jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
+    return jax.lax.Precision.HIGHEST
+
+
 @partial(jax.jit, static_argnames=("k", "batch_size", "col_block"))
 def _knn_blocked(query, x, k, batch_size, col_block=DEFAULT_COL_BLOCK):
     """Top-k smallest distances from each query row to all of x.
 
     Returns (distances (nq, k), indices (nq, k)), sorted ascending.
 
-    Performance design (measured on v5e, 250k x 50: 0.15 s vs 2.84 s for a
-    streaming exact-top_k formulation): squared matmul-form distances (the
-    sqrt is monotone — deferred to the re-rank), candidate selection with
-    ``lax.approx_min_k`` (the TPU-native partial-reduction top-k; exact on
-    CPU), and one plain scan over query blocks.
+    Design: squared matmul-form distances (the sqrt is monotone — deferred
+    to the re-rank), candidate selection with ``lax.approx_min_k`` (a
+    partial-reduction top-k where the backend has one; exact on the GPU
+    and the CPU), and one plain scan over query blocks.
 
     f32 note: the matmul form ``|x|² - 2xy + |y|²`` suffers catastrophic
     cancellation for small distances (error ~ eps·|x|², which dwarfs a tiny
@@ -62,17 +70,17 @@ def _knn_blocked(query, x, k, batch_size, col_block=DEFAULT_COL_BLOCK):
     EXACT_CAND_DIM_MAX`` the candidate distances are therefore computed
     from coordinate differences directly (cancellation-free, relative-
     accurate at any scale): at low d the elementwise form costs ~3d flops
-    per pair on the VPU vs 2d on the MXU — and a d<=16 matmul cannot fill
-    the 128-wide MXU contraction lanes anyway, so this is not a slowdown.
+    per pair vs 2d for the matmul, and a d<=16 contraction leaves a matrix
+    unit mostly idle anyway.
     """
     nq = query.shape[0]
     n = x.shape[0]
     dim = x.shape[1]
     exact_cand = dim <= EXACT_CAND_DIM_MAX
-    # candidate margin + recall target tuned on v5e (100k clustered cells,
-    # 50 dims): n_cand=32 @ recall_target=0.99 leaves 99.9% of 1-NN distances
-    # within 1e-4 relative of coordinate-exact at ~2% of the strict-top_k
-    # runtime; recall_target>=0.999 forces the exact lowering (50x slower)
+    # candidate margin + recall target (100k clustered cells, 50 dims):
+    # n_cand=32 @ recall_target=0.99 leaves 99.9% of 1-NN distances within
+    # 1e-4 relative of coordinate-exact where approx_min_k is approximate;
+    # where it lowers exactly, recall can only be higher
     n_cand = min(max(2 * k + 4, 32), n)
     n_blocks = -(-nq // batch_size)
     pad = n_blocks * batch_size - nq
@@ -94,17 +102,15 @@ def _knn_blocked(query, x, k, batch_size, col_block=DEFAULT_COL_BLOCK):
                 d2 = diff * diff if d2 is None else d2 + diff * diff
             return d2
         qn = jnp.sum(qb * qb, axis=1, keepdims=True)
-        # HIGH (3-pass) matmul: the default single bf16 pass puts ~8e-3
-        # RELATIVE noise on the norms — an absolute error ~0.008·|x|² on
-        # the squared distances, which drowned true 1-NN distances on
-        # dense data (the 98k d=2 ls inflation).  The top-k partial
-        # reduction dominates this path's runtime (see the VPU-roofline
-        # note in PERFORMANCE.md), so the extra passes are ~free.
-        return (
-            qn
-            - 2.0 * jnp.matmul(qb, xb.T, precision=jax.lax.Precision.HIGH)
-            + xbn[None, :]
-        )
+        # three bf16 products with f32 accumulation (the split-operand
+        # algorithm, ~f32 accurate): one bf16 product puts ~8e-3 RELATIVE
+        # noise on the cross term — an absolute error ~0.008·|x|² on the
+        # squared distances, which drowned true 1-NN distances on dense
+        # data (the 98k d=2 ls inflation).  TF32, what an f32 dot gets on
+        # the GPU by default, keeps only 10 mantissa bits and is no better.
+        return qn - 2.0 * jnp.matmul(
+            qb, xb.T, precision=_cross_term_precision(qb.dtype)
+        ) + xbn[None, :]
 
     def candidates_small(qb):
         _, cand_idx = jax.lax.approx_min_k(
@@ -176,10 +182,11 @@ def _knn_blocked(query, x, k, batch_size, col_block=DEFAULT_COL_BLOCK):
 def knn(x, k, query=None, batch_size=DEFAULT_BATCH_SIZE, col_block=DEFAULT_COL_BLOCK):
     """k nearest neighbors by blocked matmul sweep.
 
-    Deterministic; exact on the CPU backend.  On TPU candidate selection
-    uses ``lax.approx_min_k`` (>=99.9% of 1-NN distances within 1e-4
-    relative of coordinate-exact; see module docstring) — the reference's
-    pynndescent search is likewise approximate.
+    Deterministic.  Candidate selection uses ``lax.approx_min_k``, which
+    lowers to an exact top-k on the GPU and the CPU; the contract is
+    >=99.9% of 1-NN distances within 1e-4 relative of coordinate-exact
+    (see module docstring) — the reference's pynndescent search is
+    itself approximate.
 
     Parameters
     ----------
@@ -214,12 +221,12 @@ def knn_distances(x, k, batch_size=DEFAULT_BATCH_SIZE, method="auto"):
 
     Device replacement for ``mellon/parameters.py:352-404`` (pynndescent):
     blocked matmul search by default (``method='exact'`` forces it, naming
-    the non-IVF path — see :func:`knn` for its TPU accuracy contract);
+    the non-IVF path — see :func:`knn` for its accuracy contract);
     ``method='ivf'`` forces cluster-pruned
     search, which ``'auto'`` only picks on the CPU backend above
-    :data:`IVF_THRESHOLD` points.  On TPU the blocked sweep rides the MXU
-    and beats IVF at every measured scale (IVF's gathers don't: 17.1 s vs
-    2.8 s at 250k x 50 on one v5e), so 'auto' never selects IVF there.
+    :data:`IVF_THRESHOLD` points.  On the GPU 'auto' always takes the
+    dense blocked sweep; that choice has not yet been measured against
+    IVF there.
     """
     x = jnp.atleast_2d(x)
     use_ivf = method == "ivf" or (
@@ -245,8 +252,8 @@ def nn_distances(x, batch_size=DEFAULT_BATCH_SIZE, method="auto"):
 
 # above this database size, nn_distances on the *CPU backend* switches from
 # the blocked O(n²) sweep to cluster-pruned (IVF) search (44x faster at
-# ~100% 1-NN recall in CPU tests).  Never auto-selected on TPU — the MXU
-# sweep wins there (see knn_distances).
+# ~100% 1-NN recall in CPU tests).  Not auto-selected on the GPU (see
+# knn_distances).
 IVF_THRESHOLD = 500_000
 
 

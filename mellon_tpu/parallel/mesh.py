@@ -9,8 +9,9 @@ anywhere).  The canonical mesh for this framework has two axes:
   likelihood terms (data parallelism over cells; Mellon's analogue of
   sequence parallelism, SURVEY.md §5.7).
 
-Collectives ride ICI within a slice; on CPU test meshes the same program
-runs over ``jax_num_cpu_devices`` virtual devices.
+Collectives run over the devices' interconnect (NVLink between the GPUs
+of one host); on CPU test meshes the same program runs over
+``jax_num_cpu_devices`` virtual devices.
 """
 
 import logging

@@ -4,7 +4,7 @@ NEW capability relative to the reference (single-device only).  The central
 object is the cell-sharded loss: the n per-cell likelihood terms and the
 rows of the n×m matrix L are distributed over the ``cells`` mesh axis while
 the m-dimensional latent z stays replicated; the log-likelihood sum over
-cells lowers to an ``all-reduce`` over ICI under GSPMD.  This is the design
+cells lowers to an ``all-reduce`` under GSPMD.  This is the design
 SURVEY.md §2.4/§5.7 calls for ("cells axis → psum"; rows of L sharded;
 m×m landmark algebra replicated).
 """

@@ -260,7 +260,7 @@ MAX_ONEHOT_TIME_GROUPS = 64
 
 
 def within_time_augmented(states, group, n_times):
-    """Single-search formulation of within-group kNN (TPU-first redesign of
+    """Single-search formulation of within-group kNN (device-first redesign of
     the reference's per-time-point loop, ``mellon/parameters.py:444-531``):
     append ONE scaled group column ``C * group`` with C² larger than any
     within-group squared distance.  Within a group the column subtracts to

@@ -2,7 +2,7 @@
 
 Behavioural parity target: ``mellon/util.py`` (reference).  The numerical
 functions are written XLA-first: pairwise distances go through a single
-matmul so the MXU does the heavy lifting, and everything is jit/vmap/shard
+matmul, and everything is jit/vmap/shard
 friendly (no data-dependent Python control flow).
 """
 
@@ -31,7 +31,7 @@ DEFAULT_RANK_TOL = 5e-1
 
 @jax.jit
 def distance(x, y):
-    """Pairwise Euclidean distances via one MXU matmul, fused into one
+    """Pairwise Euclidean distances via one matmul, fused into one
     program.
 
     Parity: ``mellon/util.py:351-366`` (including the 1e-12 epsilon inside the
@@ -39,12 +39,12 @@ def distance(x, y):
     """
     xx = jnp.sum(x * x, axis=1)[:, None]
     yy = jnp.sum(y * y, axis=1)[None, :]
-    # HIGHEST: the cross term otherwise runs one reduced-precision MXU
-    # pass (~1e-3 relative), which puts 4-5 orders more noise on every
-    # kernel gram than true-f32 rounding (~6e-8) — at degenerate kernel
-    # conditioning that noise is amplified by cond(Lp) through the
-    # whitening.  The contraction is over d (tiny FLOPs next to the
-    # O(n*m) output), so the extra passes are free.
+    # HIGHEST (full f32): a reduced-precision product (one bf16 pass,
+    # ~1e-3 relative, or TF32, the GPU's default for f32 dots) puts
+    # orders more noise on every kernel gram than f32 rounding (~6e-8) —
+    # at degenerate kernel conditioning that noise is amplified by
+    # cond(Lp) through the whitening.  The contraction is over d (tiny
+    # FLOPs next to the O(n*m) output), so full precision is free.
     xy = jnp.tensordot(
         x, y, axes=(1, 1), precision=jax.lax.Precision.HIGHEST
     )

@@ -3,7 +3,7 @@
 Behavioural parity target: ``mellon/validation.py`` (reference).  The
 functions keep the reference's error semantics (same triggering conditions)
 so that estimator-level error-path tests carry over, but the implementation
-is our own and dtype-aware (f32 on TPU, f64 when x64 is enabled).
+is our own and dtype-aware (f32 by default, f64 when x64 is enabled).
 """
 
 from collections.abc import Iterable

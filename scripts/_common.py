@@ -1,6 +1,5 @@
 """Shared preamble for the benchmark/profiling scripts: repo-root import
-path, persistent compilation cache (tolerating older jax without the
-flags), and the timestamped ``log`` helper.
+path, persistent compilation cache, and the timestamped ``log`` helper.
 
 Usage (first import in every script, before any other jax use)::
 
@@ -11,15 +10,14 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 import jax  # noqa: E402
 
-try:
-    jax.config.update("jax_compilation_cache_dir", "/tmp/mellon_tpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-except Exception:  # pragma: no cover - older jax without these flags
-    pass
+from mellon_tpu.utils.compile_cache import use_compile_cache  # noqa: E402
+
+use_compile_cache(REPO)
 
 
 def log(msg):

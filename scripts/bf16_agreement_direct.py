@@ -1,5 +1,4 @@
-"""bf16-storage posterior agreement on a prepared model (VERDICT r4
-weak #8): same prepared 100k-cell DensityEstimator, same seed,
+"""bf16-storage posterior agreement on a prepared model: same prepared 100k-cell DensityEstimator, same seed,
 Hessian-preconditioned NUTS with f32 vs bfloat16 storage of L
 (``sample_density_posterior(precision="bf16")``), compared by
 per-dimension moment agreement within MC error (same test as

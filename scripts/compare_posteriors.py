@@ -2,7 +2,7 @@
 ADVI, NUTS, and SMC — means and standard deviations of the latent GP
 function.
 
-TPU-native analogue of the reference's ``scripts/compare_laplace_advi.py``
+Device analogue of the reference's ``scripts/compare_laplace_advi.py``
 (198 LoC), extended with the exact samplers the reference lacks.
 
 Usage: python scripts/compare_posteriors.py [n_cells] [n_dims]

@@ -38,8 +38,8 @@ def main(n=1_000_000, d=50):
     log(f"IVF 1-NN: cold {t_ivf_cold:.1f}s warm {t_ivf:.1f}s")
 
     # --- exact path (warmed like the IVF path: the cold run includes
-    # compile + relay program load, which would bias the speedup used to
-    # set IVF_THRESHOLD) ---
+    # compilation, which would bias the speedup used to set
+    # IVF_THRESHOLD) ---
     t0 = time.time()
     d_exact = neighbors.knn_distances(x, 1, method="exact")
     d_exact.block_until_ready()

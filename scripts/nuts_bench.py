@@ -1,9 +1,8 @@
 """North-star benchmark: NUTS effective samples / second / chip on the
 density model at 100k cells x 5k landmarks (BASELINE.json primary metric).
 
-Round-4 rework (VERDICT r3 Missing #1): the r3 table's min/median ESS/s of
-1.44/1.44 came from 60-draw windows after a 60-step warmup — a saturated
-short-window floor, not a throughput.  This version measures the number
+ESS/s from short windows after a short warmup is a saturated
+short-window floor, not a throughput.  This script measures the number
 properly:
 
 * defaults of 500 warmup / 1000 sampling draws (full Stan-style windowed
@@ -136,54 +135,6 @@ def _report(result, t_total, num_warmup, num_samples, num_chains, m):
     return est_total_lf, t_sampling, moments
 
 
-def _roofline(n, m, num_chains, est_total_lf, t_total, itemsize):
-    # each leapfrog: (n, m) matvec forward (2nm useful FLOPs) + transpose
-    # matvec backward (2nm) per chain; chains run in lockstep inside the
-    # vmapped tree so L streams from HBM once per JOINT leapfrog.  The
-    # losses run their matvec at Precision.HIGHEST (losses.py: anything
-    # less puts high-frequency rounding on the sampled potential and
-    # collapses the step size): the f32 operand streams at 4 B/element
-    # and each useful FLOP costs ~6 bf16 MXU passes, so the effective
-    # compute ceiling is peak/6.  bf16 STORAGE (opt-in) streams
-    # 2 B/element with one exact-product pass.
-    V5E_PEAK_BF16_FLOPS = 197e12
-    V5E_HBM_BYTES_S = 819e9
-    if itemsize <= 2:
-        passes = 1
-    else:
-        # the f32 matvec's pass count follows the active precision knob
-        # (losses.MATVEC_PRECISION): HIGHEST = 6 bf16 MXU passes,
-        # HIGH = 3, DEFAULT = 1.  Using the wrong constant once produced
-        # a ">100% of ceiling" line in a committed log (round-4 weak #5).
-        import jax as _jax
-        from mellon_tpu.inference.losses import MATVEC_PRECISION
-
-        passes = {
-            _jax.lax.Precision.HIGHEST: 6,
-            _jax.lax.Precision.HIGH: 3,
-            _jax.lax.Precision.DEFAULT: 1,
-        }[MATVEC_PRECISION]
-    eff_peak = V5E_PEAK_BF16_FLOPS / passes
-    joint_leapfrogs = est_total_lf / num_chains
-    flops = 4.0 * n * m * est_total_lf
-    bytes_moved = 2.0 * n * m * itemsize * joint_leapfrogs
-    achieved_flops = flops / t_total
-    achieved_bw = bytes_moved / t_total
-    ai = flops / bytes_moved
-    bound = "HBM-bandwidth" if ai < eff_peak / V5E_HBM_BYTES_S else "MXU"
-    log(
-        f"roofline (est. incl. warmup trees, {passes}-pass matvec): "
-        f"{achieved_flops / 1e12:.2f} useful TFLOP/s "
-        f"({100 * achieved_flops / eff_peak:.1f}% of the "
-        f"{eff_peak / 1e12:.0f} TFLOP/s effective {passes}-pass ceiling, "
-        f"{100 * achieved_flops / V5E_PEAK_BF16_FLOPS:.1f}% of raw bf16 "
-        f"peak), "
-        f"{achieved_bw / 1e9:.0f} GB/s "
-        f"({100 * achieved_bw / V5E_HBM_BYTES_S:.1f}% of v5e HBM peak); "
-        f"arithmetic intensity {ai:.1f} FLOP/B -> {bound}-bound"
-    )
-
-
 def main(n=100_000, m=5_000, num_warmup=500, num_samples=1_000,
          num_chains=64, precision="f32", prepared=False, chunk=None,
          depth=7, precond=False, save=None):
@@ -227,7 +178,6 @@ def main(n=100_000, m=5_000, num_warmup=500, num_samples=1_000,
         potential_args = est._loss_args
         z0 = est.pre_transformation
         m_eff = int(est.L.shape[1])
-        L_itemsize = 4
     else:
         L, nn, d, mu = _make_synthetic(n, m)
         potential_args = (L, nn, d, mu)
@@ -250,7 +200,6 @@ def main(n=100_000, m=5_000, num_warmup=500, num_samples=1_000,
             potential_args = (L, nn, d, mu)
             log("using bf16 storage for L")
         m_eff = m
-        L_itemsize = L.dtype.itemsize
 
     # re-center the sampled potential at the MAP: at O(n) magnitude the
     # f32 energy differences quantize (1 ulp at 1.3e7 is 1.0) and the
@@ -262,7 +211,7 @@ def main(n=100_000, m=5_000, num_warmup=500, num_samples=1_000,
     if precond:
         # dense-metric sampling: MAP-Hessian Cholesky transform (the
         # diagonal-mass runs max out every tree at this posterior's
-        # conditioning — see PERFORMANCE.md round-4 north-star section)
+        # conditioning)
         t0 = time.time()
         pot_base = density_loss if not prepared else potential_fn
         z0, gn0, gn1 = newton_polish(pot_base, z0, tuple(potential_args))
@@ -316,10 +265,9 @@ def main(n=100_000, m=5_000, num_warmup=500, num_samples=1_000,
     jax.device_get(result.step_size)
     t_total = time.time() - t0
 
-    est_total_lf, _, moments = _report(
+    _, _, moments = _report(
         result, t_total, num_warmup, num_samples, num_chains, m_eff
     )
-    _roofline(n, m_eff, num_chains, est_total_lf, t_total, L_itemsize)
     if save:
         # posterior moments over the dim subsample (z-space: precond draws
         # are unwhitened before _report) — the artifact the precision-knob

@@ -32,7 +32,7 @@ def main():
     log(f"cold fit: {time.time() - t0:.1f}s")
     # steady-state: the nystroem fit's program shapes are DATA-dependent
     # (pruned landmark width, mass-selected rank bucket), so a first fit
-    # of a new dataset can pay relay loads for its shape family; the
+    # of a new dataset can pay compilations for its shape family; the
     # per-dataset steady state is the SECOND fit of the same dataset
     times = []
     for k in (1, 2, 0):

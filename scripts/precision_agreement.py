@@ -1,4 +1,4 @@
-"""Posterior-agreement check between two NUTS runs (VERDICT r4 demand #7).
+"""Posterior-agreement check between two NUTS runs.
 
 Loads two moment files saved by ``nuts_bench.py ... save=PATH`` (same
 model, same seed, different ``MELLON_TPU_MATVEC_PRECISION`` or L storage

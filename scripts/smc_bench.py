@@ -6,8 +6,8 @@ to beat — this bench pins the absolute throughput of the tempered sweep
 on one chip: adaptive stages from N(0, I) to the posterior with HMC
 mutations, reporting wall time, the stage count the adaptive tempering
 chose, the log-evidence estimate, and mutation-gradient throughput
-(the same (n, m) x (m, particles) shared-matmul economics as the NUTS
-chain scaling in PERFORMANCE.md).
+(the same (n, m) x (m, particles) shared-matmul economics as NUTS chain
+scaling).
 
 Usage: python scripts/smc_bench.py [n] [m] [num_particles] [laplace]
 
@@ -109,7 +109,7 @@ def main(n=100_000, m=512, num_particles=1024, start="prior", repeats=1):
     )
 
     if repeats > 1:
-        # evidence error bar across independent sweeps (VERDICT r4 #8):
+        # evidence error bar across independent sweeps:
         # the warm sweep above counts as the first replicate
         evs = [float(res.log_evidence)]
         for s in range(3, 3 + repeats - 1):

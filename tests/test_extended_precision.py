@@ -1,9 +1,9 @@
-"""Extended-precision (double-single) MXU product tests: error-free slice
+"""Extended-precision (double-single) product tests: error-free slice
 accumulation vs numpy float64, and the full-capacity whitening hook.
 
-NEW capability (SURVEY.md §7 "Precision"; VERDICT r3 Missing #2): the
+NEW capability (SURVEY.md §7 "Precision"): the
 reference runs float64 on the host everywhere, so it has no counterpart —
-these tests pin the accuracy contract that makes the TPU f32 pipeline
+these tests pin the accuracy contract that makes the f32 pipeline
 match it at extreme kernel conditioning.
 """
 
@@ -201,7 +201,7 @@ def test_compute_L_uses_extended_precision_hook(caplog):
 
 # ---------------------------------------------------------------------------
 # double-single kernel evaluation: all six reference kernels + algebra
-# (VERDICT r4 missing #5: RatQuad/Linear/Pow cores were absent; the others
+# (RatQuad/Linear/Pow cores were once absent; the others
 # existed but lost ~6 digits on the r²/3 term through the python-float
 # Dekker-split bug fixed in _coerce_working_dtype)
 # ---------------------------------------------------------------------------

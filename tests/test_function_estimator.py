@@ -209,11 +209,11 @@ def test_f32_singular_landmark_kernel_host_rescue(caplog, propagate_logs):
 
     With wide kernels over many landmarks the landmark kernel is numerically
     singular in float32; escalating jitter lets the Cholesky "succeed" while
-    inflating prediction RMSE ~30x (observed on TPU FunctionEstimator fits).
+    inflating prediction RMSE ~30x (observed on f32 FunctionEstimator fits).
     The conditional instead recomputes the weights on the host in float64.
     The estimator surface casts to f64 under this test suite's x64 config,
     so the conditional is driven directly with f32 operands (the production
-    TPU dtype).  Regression for ``_host_f64_landmarks_weights``."""
+    device dtype).  Regression for ``_host_f64_landmarks_weights``."""
     import logging
 
     from mellon_tpu.inference.conditionals import LandmarksConditional

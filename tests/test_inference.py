@@ -149,7 +149,7 @@ def test_lbfgs_matches_scipy_on_density_loss():
 
 def test_lbfgs_bf16_two_phase_matches_f32():
     """precision="bf16" two-phase L-BFGS reaches the f32 optimum on the
-    density loss with f32 operands (the production TPU dtype)."""
+    density loss with f32 operands (the production device dtype)."""
     import numpy as np
 
     from mellon_tpu.inference.losses import density_loss

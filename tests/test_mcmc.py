@@ -596,7 +596,7 @@ def test_density_loss_vmap_matches_single_eval():
     """The chain-vmapped potential must equal the per-chain evaluation.
 
     Under ``vmap`` the per-chain L matvec becomes a matmul; without
-    ``losses.MATVEC_PRECISION`` the default reduced-precision MXU pass put
+    ``losses.MATVEC_PRECISION`` the default reduced-precision product put
     ~1e-3-relative, high-frequency-in-z rounding on the sampled potential
     surface — the root cause of the round-3/4 north-star mixing failure
     (trees maxed at any depth, step-size collapse, Rhat in the hundreds).

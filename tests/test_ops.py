@@ -246,16 +246,33 @@ def test_mle():
     assert bool(vals[0] > vals[2])
 
 
-def test_pallas_matern52_matches_xla():
-    """Fused Pallas kernel tile (interpret mode on CPU) equals the XLA
-    composition."""
-    from mellon_tpu.ops.pallas_kernels import matern52_gram_pallas
+@pytest.mark.parametrize(
+    "dtype, expected",
+    [
+        (jnp.float32, jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3),
+        (jnp.float64, jax.lax.Precision.HIGHEST),
+    ],
+)
+def test_knn_cross_term_precision(dtype, expected):
+    """The matmul-form candidate distances use three bf16 products for f32
+    (never the GPU's TF32 default) and full precision otherwise."""
+    from mellon_tpu.ops.neighbors import _cross_term_precision
 
-    x = jax.random.normal(jax.random.PRNGKey(20), (100, 5)).astype(jnp.float32)
-    y = jax.random.normal(jax.random.PRNGKey(21), (37, 5)).astype(jnp.float32)
-    K_pallas = matern52_gram_pallas(x, y, 1.3, interpret=True)
-    K_ref = Matern52(ls=1.3)(x, y)
-    assert float(jnp.abs(K_pallas - K_ref.astype(jnp.float32)).max()) < 1e-5
+    assert _cross_term_precision(jnp.dtype(dtype)) == expected
+
+
+def test_knn_f32_matmul_candidates_match_exact():
+    """Above EXACT_CAND_DIM_MAX columns the f32 search (matmul-form
+    candidates, exact re-rank) finds the f64 nearest neighbours."""
+    from mellon_tpu.ops.neighbors import EXACT_CAND_DIM_MAX, knn
+
+    d = EXACT_CAND_DIM_MAX + 4
+    x = jax.random.normal(jax.random.PRNGKey(22), (300, d))
+    dist32, _ = knn(x.astype(jnp.float32), 2)
+    dist64, _ = knn(x.astype(jnp.float64), 2)
+    np.testing.assert_allclose(
+        np.asarray(dist32[:, 1]), np.asarray(dist64[:, 1]), rtol=1e-5
+    )
 
 
 def test_ivf_knn_recall():

@@ -159,3 +159,20 @@ def test_load_genuine_reference_density_predictor(reference_fixture_dir):
     np.testing.assert_allclose(
         np.asarray(pred(x, normalize=True)), data["de_pred_norm"], atol=1e-5
     )
+
+
+@pytest.mark.parametrize(
+    "version, expected",
+    [
+        ("1.3.1", (1, 3, 1)),
+        ("1.4.0rc1", (1, 4, 0)),
+        ("v1.7", (1, 7)),
+        ("dev", None),
+    ],
+)
+def test_release_tuple(version, expected):
+    """Version strings compare by their numeric release (the <1.4.0
+    migration test), without a packaging dependency."""
+    from mellon_tpu.inference.predictors import _release_tuple
+
+    assert _release_tuple(version) == expected

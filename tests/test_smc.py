@@ -484,7 +484,7 @@ def test_smc_auto_start_scale_threshold(monkeypatch, caplog):
 
 def test_smc_evidence_error_bar_across_sweeps():
     """num_sweeps>1 returns the across-sweep mean evidence with its
-    standard deviation attached (the stated uncertainty; VERDICT r4 #8)."""
+    standard deviation attached (the stated uncertainty)."""
     from mellon_tpu import DensityEstimator
     from mellon_tpu.inference.smc import smc_density_posterior
 

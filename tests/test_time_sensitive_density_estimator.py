@@ -452,7 +452,7 @@ def test_batched_loss_finite_on_overflowing_latents():
     """Zoom line-search trial points can push exp(F+V) past the f32 range;
     the batched loss must stay finite with finite gradients (and keep
     repelling) instead of producing 0*inf = NaN through the padding mask —
-    the failure observed on TPU at the d=2 bench shape."""
+    the failure observed in f32 at the d=2 bench shape."""
     from mellon_tpu.models.ls_time import _batched_density_loss
 
     T, n_pad = 2, 4
@@ -508,7 +508,7 @@ def test_batched_loss_finite_on_overflowing_latents():
 def test_batched_ls_time_nonfinite_falls_back_to_loop(data, monkeypatch, caplog):
     """A diverged joint L-BFGS (non-finite loss) must never leak garbage
     densities into the ls fit: the batched path retries from zeros, then
-    concedes to the exact per-time loop (observed on TPU at the d=2 bench
+    concedes to the exact per-time loop (observed in f32 at the d=2 bench
     shape where all rescued per-time factors are f32-singular)."""
     import logging
 
